@@ -15,8 +15,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from magphase_tpu.io import read_binfile
-from magphase_tpu.utils.eval import log_spectral_distortion_feats
+from magphase_jax.io import read_binfile
+from magphase_jax.utils.eval import log_spectral_distortion_feats
 
 
 def main(argv=None) -> int:
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     print(f"MSD (MCD-style): {log_spectral_distortion_feats(la_, lb):8.3f} dB")
 
     if args.plot_dir:
-        from magphase_tpu.utils.plotting import plotm
+        from magphase_jax.utils.plotting import plotm
         os.makedirs(args.plot_dir, exist_ok=True)
         plotm(la_, out_file=os.path.join(args.plot_dir, "ref.png"))
         plotm(lb, out_file=os.path.join(args.plot_dir, "cand.png"))

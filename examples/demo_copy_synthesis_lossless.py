@@ -10,13 +10,16 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from magphase_tpu.io import write_audio_file, get_filename, mkdir
-from magphase_tpu.vocoder import analysis_lossless, synthesis_from_lossless
+from magphase_jax.io import write_audio_file, get_filename, mkdir
+from magphase_jax.utils.stimuli import demo_wav
+from magphase_jax.vocoder import analysis_lossless, synthesis_from_lossless
 
 if __name__ == "__main__":
-    wav_file_orig = sys.argv[1] if len(sys.argv) > 1 else \
-        "/root/reference/demos/data_48k/wavs_nat/hvd_593.wav"
-    out_dir = sys.argv[2] if len(sys.argv) > 2 else "/tmp/magphase_tpu_syn"
+    out_dir = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        os.path.dirname(__file__), "..", ".smoke", "examples")
+    mkdir(out_dir)
+    # a wav path argument, or a generated 48 kHz utterance
+    wav_file_orig = sys.argv[1] if len(sys.argv) > 1 else demo_wav(out_dir)
     mkdir(out_dir)
 
     print("Analysing...")

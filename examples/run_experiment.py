@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""End-to-end copy-synthesis experiment over the demo corpus (reference:
+"""End-to-end copy-synthesis experiment over a corpus (reference:
 development/run_merlin_experiment.py — a Merlin training driver; Merlin
 itself is external, so the self-contained equivalent here exercises the
 same framework surface: corpus feature extraction -> waveform generation
@@ -8,6 +8,10 @@ same framework surface: corpus feature extraction -> waveform generation
 Usage:
   python examples/run_experiment.py [--data-dir DIR] [--out-dir DIR]
       [--mag-dim 60] [--phase-dim 45] [--limit N]
+
+--data-dir holds file_id.scp and wavs_nat/ (the reference's demo
+layout); without it a 10-utterance 48 kHz corpus is generated
+(utils/stimuli.py).
 """
 import argparse
 import os
@@ -21,23 +25,30 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--data-dir", default="/root/reference/demos/data_48k")
-    ap.add_argument("--out-dir", default="/tmp/magphase_tpu_experiment")
+    ap.add_argument("--data-dir", default=None)
+    ap.add_argument("--out-dir", default=os.path.join(
+        os.path.dirname(__file__), "..", ".smoke", "experiment"))
     ap.add_argument("--mag-dim", type=int, default=60)
     ap.add_argument("--phase-dim", type=int, default=45)
     ap.add_argument("--limit", type=int, default=0)
     args = ap.parse_args(argv)
 
     import jax
-    from magphase_tpu.io import (read_scp_file, read_wav, write_audio_file,
+    from magphase_jax.io import (read_scp_file, read_wav, write_audio_file,
                                  mkdir)
-    from magphase_tpu.parallel.analysis_batch import analysis_compressed_batch
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
-    from magphase_tpu.utils.eval import mel_spectral_distortion_piecewise
-    from magphase_tpu.utils.metrics import Metrics, setup_logging
+    from magphase_jax.parallel.analysis_batch import analysis_compressed_batch
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.utils.eval import mel_spectral_distortion_piecewise
+    from magphase_jax.utils.metrics import Metrics, setup_logging
 
     setup_logging()
     met = Metrics()
+    if args.data_dir is None:
+        from magphase_jax.utils.stimuli import make_corpus, write_corpus
+        args.data_dir = os.path.join(args.out_dir, "data")
+        write_corpus(make_corpus(10, 48000, seed=0, min_s=1.5, max_s=4.0),
+                     os.path.join(args.data_dir, "wavs_nat"),
+                     os.path.join(args.data_dir, "file_id.scp"))
     tokens = read_scp_file(os.path.join(args.data_dir, "file_id.scp"))
     if args.limit:
         tokens = tokens[:args.limit]

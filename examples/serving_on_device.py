@@ -1,19 +1,18 @@
 #!/usr/bin/env python
 """Serving integration: acoustic model -> vocoder fused in ONE device
-program — the deployment shape the TPU numbers are built for.
+program — the deployment shape of TTS serving.
 
 The reference's serving story is file-based: Merlin writes predicted
 .mag/.real/.imag/.lf0 to disk, then batch_waveform_generation.py reads
 them back and vocodes (scripts/batch_waveform_generation.py:58-63).  On
-TPU the acoustic model's outputs should never visit the host: this
-example fuses a stand-in acoustic network (a small MLP over linguistic
-features — swap in any flax/haiku model) with the full compressed
-synthesis pipeline (mel-unwarp -> masks/noise -> iFFT -> PSOLA) in one
-jit.  Only the linguistic features go up and the PCM16 waveform comes
-down; at bench-recorded device throughput (~7400-7600 audio-s/s/chip)
-the vocoder adds ~0.13 ms of device time per second of audio.
+an accelerator the acoustic model's outputs should never visit the
+host: this example fuses a stand-in acoustic network (a small MLP over
+linguistic features — swap in any flax/haiku model) with the full
+compressed synthesis pipeline (mel-unwarp -> masks/noise -> iFFT ->
+PSOLA) in one jit.  Only the linguistic features go up and the PCM16
+waveform comes down.
 
-Run:  python examples/serving_on_device.py            (TPU or CPU)
+Run:  python examples/serving_on_device.py            (GPU or CPU)
 """
 import os
 import sys
@@ -25,8 +24,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from magphase_tpu.config import (define_alpha, define_crossfade_params)
-from magphase_tpu.vocoder.compressed import (
+from magphase_jax.config import (define_alpha, define_crossfade_params)
+from magphase_jax.vocoder.compressed import (
     _unwarp_kernel, get_num_full_mel_coeffs_from_num_phase_coeffs,
     synthesis_core_batch)
 
@@ -131,9 +130,10 @@ def main():
     print(f"warm step: {dt*1e3:.1f} ms -> {audio_s/dt:.0f} audio-s/s "
           f"(acoustic model + vocoder + PCM16, one fused program)")
 
-    out = "/tmp/magphase_tpu_syn"
+    out = os.path.join(os.path.dirname(__file__), "..", ".smoke",
+                       "examples")
     os.makedirs(out, exist_ok=True)
-    from magphase_tpu.io.wav import write_wav_pcm16
+    from magphase_jax.io.wav import write_wav_pcm16
     write_wav_pcm16(os.path.join(out, "serving_demo.wav"),
                     pcm[0, :int(lens[0])], FS)
     print(f"wrote {out}/serving_demo.wav")

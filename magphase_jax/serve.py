@@ -1,0 +1,142 @@
+"""Persistent corpus-serving daemon — in-one-process corpus economics.
+
+The reference amortises interpreter start-up across a whole corpus inside
+one Pool process (scripts/batch_feature_extraction_for_tts.py:56-57,
+libutils.py:32-63).  The one-shot CLI here pays jax init + first-call
+trace + compile-cache load per invocation, which dominates short runs.
+`cli serve` keeps ONE process alive — warm jit
+caches, warm device client — and serves extract/generate/eval/
+convert-labels requests over a Unix socket; `cli <cmd> --server SOCK`
+forwards the invocation there.
+
+Protocol: newline-delimited JSON.  Request
+    {"argv": [...], "cwd": "..."}
+response
+    {"rc": int, "error": str|null}
+plus {"shutdown": true} to stop the daemon.  Requests are served
+SEQUENTIALLY (one device; concurrent corpus jobs would contend for the
+device and its PCIe link), running the exact same cmd_* code paths as the
+one-shot CLI — outputs are byte-identical by construction (gated in
+tests/test_serve.py).
+"""
+from __future__ import annotations
+
+import json
+import os
+import socket
+import sys
+import time
+
+__all__ = ["serve_forever", "request"]
+
+
+def _recv_line(conn) -> bytes:
+    buf = bytearray()
+    while True:
+        b = conn.recv(65536)
+        if not b:
+            break
+        buf += b
+        if b"\n" in b:
+            break
+    return bytes(buf.split(b"\n", 1)[0])
+
+
+def serve_forever(sock_path: str, ready_cb=None) -> int:
+    """Bind ``sock_path`` and serve CLI requests until shutdown.
+
+    ``ready_cb``: optional callable invoked once the socket is listening
+    (tests use it; the CLI prints a ready line)."""
+    from .cli import main as cli_main
+
+    try:
+        os.unlink(sock_path)
+    except FileNotFoundError:
+        pass
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock_path)
+    # serving is sequential, but queued clients should WAIT (their turn
+    # on the warm process), not bounce off a full backlog with EAGAIN
+    srv.listen(16)
+    if ready_cb is not None:
+        ready_cb()
+    def _reply(conn, payload: bytes) -> None:
+        # a client that disconnected before reading (timeout, Ctrl-C,
+        # stray probe) must never kill the daemon — the reply is
+        # best-effort, the daemon's job is staying warm
+        try:
+            conn.sendall(payload)
+        except OSError:
+            pass
+
+    try:
+        while True:
+            conn, _ = srv.accept()
+            with conn:
+                try:
+                    # bound the request read: a half-open client that
+                    # never sends a newline must not wedge the (strictly
+                    # sequential) daemon forever
+                    conn.settimeout(30.0)
+                    req = json.loads(_recv_line(conn).decode())
+                except Exception as e:
+                    _reply(conn, json.dumps(
+                        {"rc": 2, "error": f"bad request: {e}"})
+                        .encode() + b"\n")
+                    continue
+                conn.settimeout(None)
+                if req.get("shutdown"):
+                    _reply(conn, b'{"rc": 0, "error": null}\n')
+                    return 0
+                rc, err = 2, None
+                cwd0 = os.getcwd()
+                try:
+                    # relative paths in the request resolve against the
+                    # CLIENT's cwd; serving is sequential so a per-request
+                    # chdir is race-free
+                    if req.get("cwd"):
+                        os.chdir(req["cwd"])
+                    rc = int(cli_main(list(req.get("argv", []))))
+                except SystemExit as e:          # argparse errors
+                    rc = int(e.code or 0)
+                except BaseException as e:       # noqa: BLE001 — reported
+                    err = f"{type(e).__name__}: {e}"
+                finally:
+                    os.chdir(cwd0)
+                _reply(conn, json.dumps({"rc": rc, "error": err})
+                       .encode() + b"\n")
+    finally:
+        srv.close()
+        try:
+            os.unlink(sock_path)
+        except FileNotFoundError:
+            pass
+
+
+def request(sock_path: str, argv=None, shutdown: bool = False,
+            timeout: float = 3600.0) -> int:
+    """Forward one CLI invocation to a running daemon; returns its rc."""
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.settimeout(timeout)
+    # a momentarily-full accept backlog surfaces as EAGAIN on unix
+    # sockets (Python raises it immediately despite the timeout) —
+    # retry briefly instead of failing the request
+    deadline = time.monotonic() + min(timeout, 30.0)
+    while True:
+        try:
+            c.connect(sock_path)
+            break
+        except (BlockingIOError, InterruptedError):
+            if time.monotonic() >= deadline:
+                raise
+            time.sleep(0.05)
+    with c:
+        if shutdown:
+            msg = {"shutdown": True}
+        else:
+            msg = {"argv": list(argv or []), "cwd": os.getcwd()}
+        c.sendall(json.dumps(msg).encode() + b"\n")
+        resp = json.loads(_recv_line(c).decode())
+    if resp.get("error"):
+        sys.stderr.write(f"server error: {resp['error']}\n")
+    return int(resp["rc"])

@@ -1,4 +1,4 @@
-// magphase_io: native corpus-IO runtime for magphase_tpu.
+// magphase_io: native corpus-IO runtime for magphase_jax.
 //
 // The reference's native layer (REAPER/SPTK) moved on-device; what remains
 // host-side at corpus scale is IO: WAV decode, raw float32 feature files,

@@ -2,7 +2,7 @@
 reference's LIVE pipelines (/root/reference/src/magphase.py + libaudio.py).
 
 This module exists so the test suite can run the reference's *actual math*
-(per-frame ragged loops and all) next to the TPU framework and assert the
+(per-frame ragged loops and all) next to the JAX framework and assert the
 feature streams and deterministic syntheses agree end-to-end.  It is a test
 oracle, NOT framework code: it deliberately preserves the reference's
 Python-2 integer-division semantics (written as ``//``), its per-frame

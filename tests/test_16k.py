@@ -19,7 +19,7 @@ import jax
 import pytest
 from scipy import signal as sp
 
-from magphase_tpu.config import (MagPhaseConfig, define_alpha,
+from magphase_jax.config import (MagPhaseConfig, define_alpha,
                                  define_fft_len, define_crossfade_params)
 
 DATA = "/root/reference/demos/data_48k/wavs_nat"
@@ -60,8 +60,8 @@ def wav16(demo_wav):
 
 
 def test_16k_compressed_roundtrip(tmp_path, wav16):
-    from magphase_tpu.io import write_wav
-    from magphase_tpu.vocoder import (analysis_compressed,
+    from magphase_jax.io import write_wav
+    from magphase_jax.vocoder import (analysis_compressed,
                                       synthesis_from_compressed)
     sig, fs = wav16
     wav_path = str(tmp_path / "u16.wav")
@@ -91,9 +91,9 @@ def test_16k_streams_match_reference_oracle(wav16):
     the numpy oracle with shared epochs — pins alpha=0.58, fft 2048,
     cf 2.5 kHz to the reference's exact math."""
     from oracle import refport
-    from magphase_tpu.epochs import extract_epochs
-    from magphase_tpu.vocoder.lossless import analysis_with_del_comp_from_pm
-    from magphase_tpu.vocoder.compressed import format_for_modelling
+    from magphase_jax.epochs import extract_epochs
+    from magphase_jax.vocoder.lossless import analysis_with_del_comp_from_pm
+    from magphase_jax.vocoder.compressed import format_for_modelling
 
     sig, fs = wav16
     sig = np.asarray(sig, np.float64)[:int(1.2 * fs)]
@@ -119,10 +119,10 @@ def test_16k_streams_match_reference_oracle(wav16):
 def test_multirate_corpus_msd(fs):
     """Full tracker -> compressed -> synthesis loop over ALL 10 demo
     utterances resampled to ``fs``, with recorded MSD bounds."""
-    from magphase_tpu.io import read_wav
-    from magphase_tpu.parallel.analysis_batch import analysis_compressed_batch
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
-    from magphase_tpu.utils.eval import mel_spectral_distortion_piecewise
+    from magphase_jax.io import read_wav
+    from magphase_jax.parallel.analysis_batch import analysis_compressed_batch
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.utils.eval import mel_spectral_distortion_piecewise
 
     up, dn, mean_max, utt_max, worst_max = RATE_GATES[fs]
     wavs = sorted(glob.glob(f"{DATA}/*.wav"))
@@ -150,8 +150,8 @@ def test_22050_and_44100_round_trip_smoke():
     """The other two supported rates (alpha table, magphase.py:3279-3290)
     through batched analysis + synthesis."""
     import jax
-    from magphase_tpu.parallel.analysis_batch import analysis_compressed_batch
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.parallel.analysis_batch import analysis_compressed_batch
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
 
     for fs in (22050, 44100):
         t = np.arange(int(1.0 * fs)) / fs

@@ -6,8 +6,8 @@ import shutil
 import numpy as np
 import pytest
 
-from magphase_tpu.cli import main as cli_main
-from magphase_tpu.io import read_wav, read_binfile
+from magphase_jax.cli import main as cli_main
+from magphase_jax.io import read_wav, read_binfile
 
 DATA = "/root/reference/demos/data_48k"
 
@@ -198,7 +198,7 @@ def test_generate_fallback_path_byte_identical(workdir, tmp_path,
     det_fft_syn geometry, same blocked high-pass) — a crash mid-corpus
     must not change any utterance's audio on resume."""
     import hashlib
-    import magphase_tpu.cli as cli_mod
+    import magphase_jax.cli as cli_mod
 
     fast = tmp_path / "wavs_fast"
     slow = tmp_path / "wavs_slow"
@@ -214,7 +214,7 @@ def test_generate_fallback_path_byte_identical(workdir, tmp_path,
         raise RuntimeError("forced: exercise the fallback runner")
         yield  # pragma: no cover — generator shape
 
-    monkeypatch.setattr("magphase_tpu.parallel.batch."
+    monkeypatch.setattr("magphase_jax.parallel.batch."
                         "synthesis_batches_pipelined", boom)
     args = list(common)
     args[args.index(None)] = str(slow)
@@ -252,7 +252,7 @@ def test_generate_unreadable_parks_only_failing_token(tmp_path, monkeypatch):
     healthy chunkmates stay on the pipelined fast path (witness: the
     fallback runner's batch synthesis is never invoked — the sole
     parked token fails at read time before any synthesis)."""
-    import magphase_tpu.parallel.batch as pbatch
+    import magphase_jax.parallel.batch as pbatch
 
     feats = tmp_path / "feats"
     feats.mkdir()

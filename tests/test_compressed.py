@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from magphase_tpu.io import read_binfile
-from magphase_tpu.vocoder import (synthesis_from_compressed, post_filter,
+from magphase_jax.io import read_binfile
+from magphase_jax.vocoder import (synthesis_from_compressed, post_filter,
                                   post_filter_merlin, framerate)
 
 PRED_DIR = "/root/reference/demos/data_48k/params_predicted"
@@ -109,7 +109,7 @@ def _np_pf_loop(mag, az, an, tilt_z, tilt_n):
 def test_post_filter_dev_oracle(predicted_params):
     """post_filter_dev (magphase.py:2382-2468): same body as post_filter
     plus the residual debug output."""
-    from magphase_tpu.vocoder import post_filter_dev
+    from magphase_jax.vocoder import post_filter_dev
     mag = predicted_params[0][:40]
     got_enh, got_norm = post_filter_dev(jnp.asarray(mag), 48000)
     exp_enh, exp_norm = _np_pf_loop(mag, 11, 3, 1.8, 2.0)
@@ -125,7 +125,7 @@ def test_post_filter_dev_oracle(predicted_params):
 def test_post_filter_backup_old_oracle(predicted_params):
     """post_filter_backup_old (magphase.py:2254-2297): fixed 11->3
     averaging, linspace(2, 6) boost."""
-    from magphase_tpu.vocoder import post_filter_backup_old
+    from magphase_jax.vocoder import post_filter_backup_old
     mag = predicted_params[0][:40]
     got = np.asarray(post_filter_backup_old(jnp.asarray(mag)))
     exp, _ = _np_pf_loop(mag, 11, 3, 2.0, 6.0)
@@ -186,7 +186,7 @@ def test_post_filter_merlin_numpy_oracle(predicted_params):
     b2mc -> cosmat(alpha=0,'log')."""
     fs, pf_coef, fft_len = 48000, 1.4, 4096
     minph_ord = fft_len // 2 - 1
-    from magphase_tpu.config import define_alpha
+    from magphase_jax.config import define_alpha
     alpha = define_alpha(fs)
     mag = np.asarray(predicted_params[0][:8], np.float64)
     nfrms, ncoeffs = mag.shape
@@ -233,8 +233,8 @@ def test_fbank_mel_end_to_end_roundtrip():
     the loop reconstructs recognisable speech.  (The reference accepts
     b_mag_fbank_mel on analysis_compressed but silently drops it; here
     the flag is honoured end to end.)"""
-    from magphase_tpu.vocoder import analysis_compressed
-    from magphase_tpu.utils.eval import mel_spectral_distortion
+    from magphase_jax.vocoder import analysis_compressed
+    from magphase_jax.utils.eval import mel_spectral_distortion
 
     wav = "/root/reference/demos/data_48k/wavs_nat/hvd_593.wav"
     fix = np.load(os.path.join(os.path.dirname(__file__), "data",
@@ -253,7 +253,7 @@ def test_fbank_mel_end_to_end_roundtrip():
                                     b_fbank_mel=True,
                                     key=jax.random.PRNGKey(3))
     assert np.all(np.isfinite(syn))
-    from magphase_tpu.io import read_wav
+    from magphase_jax.io import read_wav
     sig, fs = read_wav(wav)
     # fbank compression is the reference's experimental path ("didn't
     # work very well", magphase.py:3028) — gate loosely vs the natural
@@ -297,7 +297,7 @@ def test_hash_noise_whiteness():
     stand in for the reference's np.random.uniform excitation
     (magphase.py:883): near-zero mean, uniform[-1,1) std, no lag
     correlation, flat spectrum, and invariant to the batch/draw size."""
-    from magphase_tpu.vocoder.compressed import hash_noise_uniform
+    from magphase_jax.vocoder.compressed import hash_noise_uniform
 
     keys = np.asarray(jax.random.split(jax.random.PRNGKey(7), 3))
     n = 1 << 18
@@ -327,9 +327,9 @@ def test_noise_frames_direct_equals_buffer_and_gather():
     """Frame-space hash noise (_noise_frames_direct) must be bit-identical
     to materialising the (B, ns_len) buffer and framing it — the property
     that lets synthesis skip the buffer entirely."""
-    from magphase_tpu.core import framing
-    from magphase_tpu.core.windows import HANNING, VOI_NOISE
-    from magphase_tpu.vocoder.compressed import (_noise_frames_direct,
+    from magphase_jax.core import framing
+    from magphase_jax.core.windows import HANNING, VOI_NOISE
+    from magphase_jax.vocoder.compressed import (_noise_frames_direct,
                                                  hash_noise_uniform)
 
     rng = np.random.RandomState(5)

@@ -1,10 +1,10 @@
 """Fused device copy-synthesis pipeline."""
 import numpy as np
 
-from magphase_tpu.io import read_wav
-from magphase_tpu.parallel.copy_synthesis import copy_synthesis_batch
-from magphase_tpu.epochs import tracker
-from magphase_tpu.epochs.placement_device import place_epochs_kernel
+from magphase_jax.io import read_wav
+from magphase_jax.parallel.copy_synthesis import copy_synthesis_batch
+from magphase_jax.epochs import tracker
+from magphase_jax.epochs.placement_device import place_epochs_kernel
 
 DATA = "/root/reference/demos/data_48k/wavs_nat"
 
@@ -14,7 +14,7 @@ def _host_vs_device_walk(sig, fs, pad_frames_to=None):
     (f0/voiced PADDED past the real frame count when pad_frames_to is
     set, as track_and_place_one feeds the kernel)."""
     import jax.numpy as jnp
-    from magphase_tpu.utils.padding import bucket, pad_to
+    from magphase_jax.utils.padding import bucket, pad_to
 
     f0, voiced, step, y_snap = tracker.track_f0(sig, fs)
     pm_h, voi_h = tracker.place_epochs(sig, fs, f0, voiced, y_snap, step)

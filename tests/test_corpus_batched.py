@@ -1,7 +1,7 @@
 """Batched corpus runner: chunk fault isolation, crash list, resume."""
 import os
 
-from magphase_tpu.utils.corpus import run_corpus_batched
+from magphase_jax.utils.corpus import run_corpus_batched
 
 
 def test_batched_isolation_and_resume(tmp_path):

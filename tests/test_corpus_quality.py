@@ -18,7 +18,7 @@ import numpy as np
 import jax
 import pytest
 
-from magphase_tpu.io import read_wav
+from magphase_jax.io import read_wav
 
 DATA = "/root/reference/demos/data_48k/wavs_nat"
 FS = 48000
@@ -63,7 +63,7 @@ def corpus():
 
 
 def test_lossless_copy_synthesis_whole_corpus(corpus):
-    from magphase_tpu.parallel.copy_synthesis import copy_synthesis_batch
+    from magphase_jax.parallel.copy_synthesis import copy_synthesis_batch
     toks, sigs = corpus
     outs = copy_synthesis_batch(sigs, FS)
     for tok, sig, syn in zip(toks, sigs, outs):
@@ -76,10 +76,10 @@ def test_lossless_copy_synthesis_whole_corpus(corpus):
 
 
 def _corpus_msd(toks, sigs, epochs=None):
-    from magphase_tpu.parallel.analysis_batch import \
+    from magphase_jax.parallel.analysis_batch import \
         analysis_compressed_batch
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
-    from magphase_tpu.utils.eval import mel_spectral_distortion_piecewise
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.utils.eval import mel_spectral_distortion_piecewise
 
     feats = analysis_compressed_batch(sigs, FS, epochs=epochs)
     utts = [(m, r, i, l) for (m, r, i, l, _s) in feats]

@@ -4,7 +4,7 @@ pipelines must return finite, well-formed output for silence, noise, DC
 and near-empty signals rather than raise."""
 import numpy as np
 
-from magphase_tpu.parallel.analysis_batch import analysis_compressed_batch
+from magphase_jax.parallel.analysis_batch import analysis_compressed_batch
 
 FS = 48000
 

@@ -9,13 +9,11 @@ import pytest
 
 from oracle import refport
 
-WAV_DIR = "/root/reference/demos/data_48k/wavs_nat"
-
 
 def test_spectral_smoothing_rceps_matches_reference():
     """libaudio.py:203-238 semantics, including the reference's
     odd hanning fade slice."""
-    from magphase_tpu.core.spectral import spectral_smoothing_rceps
+    from magphase_jax.core.spectral import spectral_smoothing_rceps
     rng = np.random.RandomState(0)
     m_sp_log = rng.randn(6, 129) * 2.0
     for nc_total, fade in ((60, 0.2), (40, 0.7), (100, 0.5)):
@@ -34,7 +32,7 @@ def test_true_envelope_matches_reference():
     early exit — the framework's freeze-mask scan must reproduce the
     reference's per-frame break semantics, including frames that converge
     at different iteration counts."""
-    from magphase_tpu.core.spectral import true_envelope
+    from magphase_jax.core.spectral import true_envelope
     rng = np.random.RandomState(1)
     h = 129
     # mix of smooth frames (converge immediately) and harmonic-comb frames
@@ -64,16 +62,19 @@ def test_true_envelope_matches_reference():
         assert np.max(np.abs(w - g)) < 0.05, in_type  # dB
 
 
-@pytest.mark.skipif(not os.path.isdir(WAV_DIR), reason="no demo corpus")
 def test_analysis_lossless_type2_matches_reference():
     """magphase.py:2793-2866 (even/odd interleave + true-envelope magnitude
-    + type2 phase with gain) vs the oracle port, on a real speech slice."""
-    from magphase_tpu.io import wav as wav_io
-    from magphase_tpu import epochs
-    from magphase_tpu.vocoder import variants
+    + type2 phase with gain) vs the oracle port, on a generated
+    speech-like slice (utils/stimuli.py)."""
+    from magphase_jax.io import wav as wav_io
+    from magphase_jax import epochs
+    from magphase_jax.utils.stimuli import make_corpus
+    from magphase_jax.vocoder import variants
 
-    v_sig, fs = wav_io.read_wav(os.path.join(WAV_DIR, "hvd_593.wav"))
-    v_sig = np.asarray(v_sig, np.float64)[:int(0.6 * fs)]
+    u = make_corpus(1, 48000, seed=4, min_s=1.0, max_s=1.0)[0]
+    fs = u.fs
+    # on the PCM16 lattice, so the wav write/read below is exact
+    v_sig = np.rint(u.sig[:int(0.6 * fs)] * 32768.0) / 32768.0
     pm_sec, voi = epochs.extract_epochs(v_sig, fs)
 
     want = refport.analysis_lossless_type2(v_sig, fs, pm_sec, voi)
@@ -82,8 +83,8 @@ def test_analysis_lossless_type2_matches_reference():
     import tempfile
     with tempfile.TemporaryDirectory() as d:
         wav_path = os.path.join(d, "slice.wav")
-        # PCM16 write/read is exact here: the slice came from a 16-bit wav,
-        # so its samples already sit on the PCM16 lattice
+        # PCM16 write/read is exact here: the slice's samples already
+        # sit on the PCM16 lattice
         wav_io.write_wav(wav_path, v_sig, fs)
         got = variants.analysis_lossless_type2(wav_path, pm_sec=pm_sec,
                                                voi=voi)
@@ -107,7 +108,7 @@ def test_analysis_lossless_type2_matches_reference():
 def test_write_reaper_est_file_round_trip(tmp_path):
     """io/est.py: write -> read recovers times (1e-6 s precision) and
     voicing exactly, through the reader's REAPER-bug guards."""
-    from magphase_tpu.io import est as est_io
+    from magphase_jax.io import est as est_io
     rng = np.random.RandomState(3)
     fs = 48000
     shifts = rng.randint(100, 500, 50)

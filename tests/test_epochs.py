@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from magphase_tpu.epochs.tracker import extract_epochs, track_f0
+from magphase_jax.epochs.tracker import extract_epochs, track_f0
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +52,9 @@ def test_demo_wav_copy_synthesis_quality(demo_wav):
     """Tracker-driven lossless copy synthesis must reconstruct the demo
     utterance to sub-PCM16 accuracy over most samples (the unvoiced 5 ms
     marks and voiced shift round-trips are float-exact)."""
-    from magphase_tpu.vocoder import (analysis_with_del_comp_from_pm,
+    from magphase_jax.vocoder import (analysis_with_del_comp_from_pm,
                                       synthesis_from_lossless)
-    from magphase_tpu.epochs.tracker import extract_epochs
+    from magphase_jax.epochs.tracker import extract_epochs
     sig, fs = demo_wav
     pm_sec, voi = extract_epochs(sig, fs)
     m_mag, m_real, m_imag, v_f0, v_shift = analysis_with_del_comp_from_pm(

@@ -1,7 +1,7 @@
 """Objective eval metric (mel-spectral distortion)."""
 import numpy as np
 
-from magphase_tpu.utils.eval import (log_mel_spectrogram,
+from magphase_jax.utils.eval import (log_mel_spectrogram,
                                      log_spectral_distortion_feats,
                                      mel_spectral_distortion)
 
@@ -53,8 +53,8 @@ def test_msd_piecewise_removes_mid_utterance_drift():
     stays near lag 0): global alignment can satisfy at most one span,
     local alignment recovers each — piecewise MSD must sit far below the
     globally-aligned MSD."""
-    from magphase_tpu.utils.eval import mel_spectral_distortion_piecewise
-    from magphase_tpu.utils.tracker_eval import make_stimulus
+    from magphase_jax.utils.eval import mel_spectral_distortion_piecewise
+    from magphase_jax.utils.tracker_eval import make_stimulus
     fs = 48000
     sig, _, _, _ = make_stimulus(fs, [(3.0, 110.0, 180.0)], seed=2)
     n = len(sig)

@@ -1,10 +1,12 @@
 """IIR filter kernels vs scipy oracles."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 from scipy import signal as sp
 
-from magphase_tpu.core.filters import (butter_highpass_sos, sosfilt,
-                                       lfilter, medfilt3)
+from magphase_jax.core.filters import (butter_highpass_sos,
+                                       ellip_highpass_coeffs, lfilter,
+                                       medfilt3, sosfilt)
 
 
 def test_sosfilt_hpf_float32_stable_and_accurate():
@@ -41,6 +43,23 @@ def test_lfilter_low_order_matches_scipy():
     assert np.max(np.abs(y - ref)) < 1e-4
 
 
+@pytest.mark.parametrize("design", ["butter2_lp", "butter1_bp", "ellip2_hp",
+                                    "pre_emphasis", "one_pole"])
+def test_lfilter_matches_scipy_lfilter(design):
+    """The associative-scan IIR (core/filters.py:lfilter, state maps
+    composed at precision HIGHEST) vs scipy.signal.lfilter in float64."""
+    b, a = {"butter2_lp": lambda: sp.butter(2, 0.2),
+            "butter1_bp": lambda: sp.butter(1, [0.1, 0.3], btype="band"),
+            "ellip2_hp": lambda: ellip_highpass_coeffs(2, 0.5, 40.0, 700.0,
+                                                       16000),
+            "pre_emphasis": lambda: ([1.0, -0.97], [1.0]),
+            "one_pole": lambda: ([0.05], [1.0, -0.95])}[design]()
+    x = np.random.RandomState(4).randn(8192).astype(np.float32)
+    y = np.asarray(lfilter(tuple(b), tuple(a), jnp.asarray(x)))
+    ref = sp.lfilter(b, a, x.astype(np.float64))
+    assert np.max(np.abs(y - ref)) < 1e-4 * max(1.0, np.max(np.abs(ref)))
+
+
 def test_medfilt3_matches_scipy():
     x = np.random.RandomState(2).randn(501)
     got = np.asarray(medfilt3(jnp.asarray(x)))
@@ -53,7 +72,7 @@ def test_sos_freq_response_rfft_matches_freqz():
     every rfft bin; DC is fully rejected; Nyquist response is real (the
     hermitian irfft assumes real DC/Nyquist bins)."""
     from scipy import signal as sp_signal
-    from magphase_tpu.core.filters import (butter_highpass_coeffs,
+    from magphase_jax.core.filters import (butter_highpass_coeffs,
                                            butter_highpass_sos,
                                            sos_freq_response_rfft)
     sos = butter_highpass_sos(4, 40.0, 48000)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 
 
 def test_futil_helpers(tmp_path):
-    from magphase_tpu.utils import (DimProtect, fileparts,
+    from magphase_jax.utils import (DimProtect, fileparts,
                                     indexes_to_one_zero_vector, ins_pid,
                                     ins_date_time, round_to_int,
                                     read_text_file2, is_mutable)
@@ -29,7 +29,7 @@ def test_futil_helpers(tmp_path):
 
 
 def test_masks_and_frame_shift():
-    from magphase_tpu.core.misc_dsp import (gen_mask_simple, mix_by_mask,
+    from magphase_jax.core.misc_dsp import (gen_mask_simple, mix_by_mask,
                                             frame_shift,
                                             estim_ap_mask_from_ph_data)
     v_voi = np.array([1.0, 0.0, 1.0])
@@ -51,7 +51,7 @@ def test_masks_and_frame_shift():
 
 
 def test_bucket_signal_geometric():
-    from magphase_tpu.utils.padding import SIG_STEP, bucket_signal
+    from magphase_jax.utils.padding import SIG_STEP, bucket_signal
     # multiples of SIG_STEP, monotone, <=25% overshoot, log-many variants
     assert bucket_signal(1) == SIG_STEP
     assert bucket_signal(163840) == 163840          # demo-corpus bucket

@@ -6,14 +6,14 @@ import jax
 import numpy as np
 import pytest
 
-from magphase_tpu.io import read_binfile
+from magphase_jax.io import read_binfile
 
 PRED = "/root/reference/demos/data_48k/params_predicted"
 
 
 @pytest.fixture(scope="module")
 def mag_and_shifts(demo_wav, synthetic_pm):
-    from magphase_tpu.vocoder import analysis_with_del_comp_from_pm
+    from magphase_jax.vocoder import analysis_with_del_comp_from_pm
     sig, fs = demo_wav
     pm, shifts = synthetic_pm
     pm, shifts = pm[:80], shifts[:80]
@@ -24,7 +24,7 @@ def mag_and_shifts(demo_wav, synthetic_pm):
 
 def _recon_err(m_mag, v_shift, v_sig):
     """Magnitude-consistency error: |STFT-mag(sig) - target|."""
-    from magphase_tpu.vocoder import analysis_with_del_comp_from_pm
+    from magphase_jax.vocoder import analysis_with_del_comp_from_pm
     pm = np.cumsum(v_shift)
     mag, *_ = analysis_with_del_comp_from_pm(
         v_sig, 48000, pm, np.ones(len(pm)), fft_len=1024)
@@ -34,7 +34,7 @@ def _recon_err(m_mag, v_shift, v_sig):
 
 @pytest.mark.parametrize("init", ["random", "linear", "min_phase"])
 def test_griffin_lim_converges(mag_and_shifts, init):
-    from magphase_tpu.vocoder import griffin_lim
+    from magphase_jax.vocoder import griffin_lim
     m_mag, shifts = mag_and_shifts
     v1, _ = griffin_lim(m_mag, shifts, phase_init=init, niters=1,
                         key=jax.random.PRNGKey(0))
@@ -50,7 +50,7 @@ def test_griffin_lim_converges(mag_and_shifts, init):
 
 @pytest.mark.parametrize("ptype", ["linear", "min_phase"])
 def test_synthesis_per_phase_variants(ptype):
-    from magphase_tpu.vocoder import synthesis_from_compressed
+    from magphase_jax.vocoder import synthesis_from_compressed
     mag = read_binfile(os.path.join(PRED, "hvd_704.mag"), 60)[:64]
     real = read_binfile(os.path.join(PRED, "hvd_704.real"), 45)[:64]
     imag = read_binfile(os.path.join(PRED, "hvd_704.imag"), 45)[:64]
@@ -66,7 +66,7 @@ def test_griffin_lim_ndarray_init_matches_numpy_one_iter(mag_and_shifts):
     """ndarray phase_init (magphase.py:3348-3349), one iteration: the loop
     never re-analyses, so output = OLA(ifft(mag * exp(i*herm_phase(init))))
     -- re-stated here in numpy with the reference's centred OLA."""
-    from magphase_tpu.vocoder import griffin_lim
+    from magphase_jax.vocoder import griffin_lim
     m_mag, shifts = mag_and_shifts
     m_mag = np.asarray(m_mag[:40], np.float64)
     shifts = np.asarray(shifts[:40]).astype(np.int64)
@@ -106,14 +106,14 @@ def test_griffin_lim_ndarray_init_matches_numpy_one_iter(mag_and_shifts):
 def test_synthesis_type1_old_with_griffin_lim(gl_type):
     """magphase.py:617-794 on real predicted params: finite, speech-scaled
     output in every griff_lim_type mode."""
-    from magphase_tpu.vocoder import (
+    from magphase_jax.vocoder import (
         synthesis_from_compressed_type1_old_with_griffin_lim)
     mag = read_binfile(os.path.join(PRED, "hvd_704.mag"), 60)[:64]
     real = read_binfile(os.path.join(PRED, "hvd_704.real"), 45)[:64]
     imag = read_binfile(os.path.join(PRED, "hvd_704.imag"), 45)[:64]
     lf0 = read_binfile(os.path.join(PRED, "hvd_704.lf0"), 1)[:64]
     niters = {"det": 3, "whole": 4}   # keep CI fast; ref: 10 / 50
-    import magphase_tpu.vocoder.variants as V
+    import magphase_jax.vocoder.variants as V
     orig = V.synthesis_from_compressed_type1_old_with_griffin_lim
     v = orig(mag, real, imag, lf0, 48000, griff_lim_type=gl_type,
              key=jax.random.PRNGKey(0))

@@ -1,6 +1,6 @@
 """Long-utterance end-to-end under a lowered HBM budget (round-2 VERDICT
 item 7): the sub-batch split and bucket-fallback machinery
-(utils/padding.py MAX_FRAME_ELEMS, parallel/analysis_batch._budget_geometry,
+(utils/padding.py max_frame_elems, parallel/analysis_batch._budget_geometry,
 parallel/batch's budget_batch_cap path) must actually EXECUTE in CI and
 produce outputs identical to the unconstrained run — a mis-sized split or
 a dropped frame breaks equality."""
@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import pytest
 
-from magphase_tpu.utils.tracker_eval import make_stimulus
+from magphase_jax.utils.tracker_eval import make_stimulus
 
 FS = 48000
 
@@ -40,7 +40,7 @@ def long_corpus():
 
 
 def _run_analysis(sigs, epochs, mesh=None):
-    from magphase_tpu.parallel.analysis_batch import analysis_compressed_batch
+    from magphase_jax.parallel.analysis_batch import analysis_compressed_batch
     return analysis_compressed_batch(sigs, FS, mag_dim=20, phase_dim=10,
                                      fft_len=512, epochs=epochs, mesh=mesh)
 
@@ -52,8 +52,8 @@ def test_long_utterance_analysis_split_equals_unsplit(long_corpus,
 
     # ~8M row-elems: the 30 s utterance alone (~6.5k frames x 512) exceeds
     # a naive 4-per-batch bucket, forcing the budget cap + split recursion
-    monkeypatch.setattr("magphase_tpu.parallel.analysis_batch."
-                        "MAX_FRAME_ELEMS", 1 << 23)
+    monkeypatch.setattr("magphase_jax.parallel.analysis_batch."
+                        "max_frame_elems", lambda: 1 << 23)
     got = _run_analysis(sigs, epochs)
 
     assert len(got) == len(ref) == len(sigs)
@@ -64,7 +64,7 @@ def test_long_utterance_analysis_split_equals_unsplit(long_corpus,
 
 def test_long_utterance_synthesis_split_equals_unsplit(long_corpus,
                                                        monkeypatch):
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
     sigs, epochs = long_corpus
     feats = _run_analysis(sigs, epochs)
     utts = [(m, r, i, l) for (m, r, i, l, _s) in feats]
@@ -72,8 +72,8 @@ def test_long_utterance_synthesis_split_equals_unsplit(long_corpus,
     key = jax.random.PRNGKey(9)
     ref = synthesis_from_compressed_batch(utts, FS, fft_len=512, key=key)
 
-    monkeypatch.setattr("magphase_tpu.parallel.batch.MAX_FRAME_ELEMS",
-                        1 << 23)
+    monkeypatch.setattr("magphase_jax.parallel.batch.max_frame_elems",
+                        lambda: 1 << 23)
     got = synthesis_from_compressed_batch(utts, FS, fft_len=512, key=key)
 
     assert len(got) == len(ref)
@@ -92,12 +92,12 @@ def test_long_utterance_synthesis_split_equals_unsplit(long_corpus,
 def test_long_utterance_tracker_path_split(monkeypatch):
     """The fused tracker->analysis path's budget split (_split_for_budget)
     on two medium utterances with a tiny budget."""
-    from magphase_tpu.parallel.analysis_batch import analysis_lossless_batch
+    from magphase_jax.parallel.analysis_batch import analysis_lossless_batch
     sigs = [make_stimulus(FS, [(3.0, 110.0, 200.0)], seed=k)[0]
             for k in range(2)]
     ref = analysis_lossless_batch(sigs, FS, fft_len=512)
-    monkeypatch.setattr("magphase_tpu.parallel.analysis_batch."
-                        "MAX_FRAME_ELEMS", 1 << 22)
+    monkeypatch.setattr("magphase_jax.parallel.analysis_batch."
+                        "max_frame_elems", lambda: 1 << 22)
     got = analysis_lossless_batch(sigs, FS, fft_len=512)
     assert len(got) == len(ref)
     for (a, b) in zip(ref, got):

@@ -5,14 +5,16 @@ copy-synthesis reproduces the waveform: pitch-synchronous asymmetric
 hanning windows of adjacent frames sum to exactly 1 over each shared pitch
 period, so analysis -> synthesis is an identity in the interior
 (magphase.py:266-334 + 1759-1776).  We verify that property end-to-end on a
-real 48 kHz demo utterance with deterministic pitch marks.
+generated 48 kHz speech-like utterance (tests/conftest.py:demo_wav) with
+deterministic pitch marks.
 """
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from magphase_tpu.core import framing
-from magphase_tpu.core.windows import HANNING, gen_non_symmetric_win_np
-from magphase_tpu.vocoder import (analysis_with_del_comp_from_pm,
+from magphase_jax.core import framing
+from magphase_jax.core.windows import HANNING, gen_non_symmetric_win_np
+from magphase_jax.vocoder import (analysis_with_del_comp_from_pm,
                                   synthesis_from_lossless)
 
 
@@ -102,7 +104,7 @@ def test_synthesis_with_del_comp_reconstructs(demo_wav, synthetic_pm):
     numpy re-statement of the reference semantics, and (b) the loose
     interior reconstruction the reference achieves."""
     import numpy as np
-    from magphase_tpu.vocoder import (analysis_with_del_comp_from_pm,
+    from magphase_jax.vocoder import (analysis_with_del_comp_from_pm,
                                       synthesis_with_del_comp)
     sig, fs = demo_wav
     pm, shifts = synthetic_pm
@@ -139,7 +141,7 @@ def test_synthesis_with_del_comp_reconstructs(demo_wav, synthetic_pm):
 def test_synthesis_with_del_comp_dead_branch_raises():
     import numpy as np
     import pytest
-    from magphase_tpu.vocoder import synthesis_with_del_comp
+    from magphase_jax.vocoder import synthesis_with_del_comp
     with pytest.raises(NotImplementedError):
         synthesis_with_del_comp(np.ones((4, 9)), np.zeros((4, 9)),
                                 np.full(4, 4), win_flat_to_len=0.3)
@@ -148,7 +150,7 @@ def test_synthesis_with_del_comp_dead_branch_raises():
 def test_densify_pitch_marks_matches_numpy_oracle():
     """Numpy re-statement of the nwin_per_pitch_period>=1 branch
     (magphase.py:280-288): tile/step/flatten('F'), last mark dropped."""
-    from magphase_tpu.vocoder.lossless import densify_pitch_marks
+    from magphase_jax.vocoder.lossless import densify_pitch_marks
 
     rng = np.random.RandomState(0)
     pm = np.cumsum(rng.randint(80, 300, size=20)).astype(np.float64)
@@ -173,7 +175,7 @@ def test_densify_pitch_marks_matches_numpy_oracle():
 
 def test_analysis_nwin1_equals_predensified(demo_wav, synthetic_pm):
     """analysis(nwin=1) must equal analysis(0.5) over the densified train."""
-    from magphase_tpu.vocoder.lossless import densify_pitch_marks
+    from magphase_jax.vocoder.lossless import densify_pitch_marks
 
     sig, fs = demo_wav
     pm, _ = synthetic_pm
@@ -188,3 +190,20 @@ def test_analysis_nwin1_equals_predensified(demo_wav, synthetic_pm):
     assert got[0].shape[0] == (len(pm) - 1) * 2
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_lossless_copy_synthesis_generated(fs):
+    """Batched lossless copy-synthesis (tracker -> epoch walk -> analysis
+    -> resynthesis in one program) reconstructs generated speech-like
+    utterances to within one PCM16 step (p99)."""
+    from magphase_jax.parallel.copy_synthesis import copy_synthesis_batch
+    from magphase_jax.utils.stimuli import make_corpus
+
+    sigs = [np.rint(u.sig * 32768.0) / 32768.0
+            for u in make_corpus(2, fs, seed=21, min_s=1.0, max_s=1.5)]
+    for sig, syn in zip(sigs, copy_synthesis_batch(sigs, fs)):
+        assert np.all(np.isfinite(syn))
+        n = min(len(sig), len(syn))
+        err = np.abs(syn[2000:n - 2000] - sig[2000:n - 2000])
+        assert np.percentile(err, 99) < 2.0 ** -15

@@ -12,8 +12,8 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 from oracle import refport  # noqa: E402
 
-from magphase_tpu.io import read_wav  # noqa: E402
-from magphase_tpu.vocoder.lossless_f64 import (  # noqa: E402
+from magphase_jax.io import read_wav  # noqa: E402
+from magphase_jax.vocoder.lossless_f64 import (  # noqa: E402
     analysis_lossless_f64, copy_synthesis_f64, synthesis_from_lossless_f64)
 
 WAV = "/root/reference/demos/data_48k/wavs_nat/hvd_593.wav"

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from magphase_tpu.core import melcep
+from magphase_jax.core import melcep
 
 
 def test_freqt_matrix_transform_identity_at_alpha0():

@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from magphase_tpu.core import misc_dsp as M
-from magphase_tpu.core import spectral as S
-from magphase_tpu.core import fbank
+from magphase_jax.core import misc_dsp as M
+from magphase_jax.core import spectral as S
+from magphase_jax.core import fbank
 
 
 def test_interp_unv_regions_linear():
@@ -72,7 +72,7 @@ def test_spectral_crossfade_matches_reference():
 def test_min_phase_is_min_phase():
     """Minimum-phase spectrum has the input magnitude and causal cepstrum."""
     rng = np.random.RandomState(3)
-    from magphase_tpu.core import melcep
+    from magphase_jax.core import melcep
     mc = rng.randn(2, 20) * 0.5 ** np.arange(20)
     m_mag = np.asarray(melcep.mcep_to_sp_cosmat(jnp.asarray(mc), 257,
                                                 alpha=0.0, out_type="abs"))
@@ -81,7 +81,7 @@ def test_min_phase_is_min_phase():
 
 
 def test_fbank_warp_unwarp_smooth_roundtrip():
-    from magphase_tpu.core import melcep
+    from magphase_jax.core import melcep
     rng = np.random.RandomState(4)
     mc = rng.randn(2, 15) * 0.5 ** np.arange(15)
     m_log = np.asarray(melcep.mcep_to_sp_cosmat(jnp.asarray(mc), 2049,
@@ -108,8 +108,8 @@ def test_sp_mel_warp_fbank_2d_matches_numpy_oracle():
     magnitude, then per-band hanning(span+2) smoothing along frames with
     boundary extension (smooth_by_conv, libaudio.py:878-918)."""
     from scipy import interpolate
-    from magphase_tpu.core import melcep
-    from magphase_tpu.core.spectral import mel_curve_np
+    from magphase_jax.core import melcep
+    from magphase_jax.core.spectral import mel_curve_np
 
     rng = np.random.RandomState(5)
     mc = rng.randn(30, 15) * 0.5 ** np.arange(15)
@@ -128,7 +128,7 @@ def test_sp_mel_warp_fbank_2d_matches_numpy_oracle():
     cntrs = np.round(f(cntrs_mel)).astype(int)
     B = np.zeros((nbins, nbands))
     ext = np.r_[cntrs[0], cntrs, cntrs[-1]]
-    from magphase_tpu.core.windows import gen_non_symmetric_win_np
+    from magphase_jax.core.windows import gen_non_symmetric_win_np
     for b in range(1, nbands + 1):
         w = gen_non_symmetric_win_np(ext[b] - ext[b - 1],
                                      ext[b + 1] - ext[b],

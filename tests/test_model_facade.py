@@ -4,7 +4,7 @@ import jax
 
 
 def test_ops_namespace_exports():
-    from magphase_tpu import ops
+    from magphase_jax import ops
     assert callable(ops.sp_mel_warp)
     assert callable(ops.pitch_sync_frames_batch)
     assert callable(ops.sosfilt)
@@ -12,8 +12,8 @@ def test_ops_namespace_exports():
 
 def test_vocoder_facade_synthesis_roundtrip():
     import os
-    from magphase_tpu.io import read_binfile
-    from magphase_tpu.models import MagPhaseVocoder
+    from magphase_jax.io import read_binfile
+    from magphase_jax.models import MagPhaseVocoder
     PRED = "/root/reference/demos/data_48k/params_predicted"
     mag = read_binfile(os.path.join(PRED, "hvd_704.mag"), 60)
     real = read_binfile(os.path.join(PRED, "hvd_704.real"), 45)

@@ -4,8 +4,8 @@ import os
 import numpy as np
 import pytest
 
-from magphase_tpu.io import native
-from magphase_tpu.io.wav import read_wav as py_read_wav
+from magphase_jax.io import native
+from magphase_jax.io.wav import read_wav as py_read_wav
 
 DATA = "/root/reference/demos/data_48k/wavs_nat"
 TOKS = ["hvd_593", "hvd_594", "hvd_595"]
@@ -43,7 +43,7 @@ def test_native_batch_read(lib_ok):
 
 
 def test_native_binfile_roundtrip(lib_ok, tmp_path):
-    from magphase_tpu.io import write_binfile
+    from magphase_jax.io import write_binfile
     m = np.random.RandomState(0).randn(40, 60).astype(np.float32)
     p = str(tmp_path / "x.mag")
     write_binfile(m, p)

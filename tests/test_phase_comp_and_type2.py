@@ -21,7 +21,7 @@ def short_epochs():
 
 
 def test_format_phase_comp_and_synthesis_roundtrip(short_epochs):
-    from magphase_tpu.vocoder.phase_comp import (
+    from magphase_jax.vocoder.phase_comp import (
         analysis_compressed_type1_with_phase_comp,
         synthesis_from_compressed_type1_with_phase_comp)
     pm_sec, voi = short_epochs
@@ -45,7 +45,7 @@ def test_format_phase_comp_and_synthesis_roundtrip(short_epochs):
 
 
 def test_analysis_compressed_type2(short_epochs):
-    from magphase_tpu.vocoder.variants import analysis_compressed_type2
+    from magphase_jax.vocoder.variants import analysis_compressed_type2
     pm_sec, voi = short_epochs
     out = analysis_compressed_type2(WAV, mag_dim=40, phase_dim=20,
                                     pm_sec=pm_sec, voi=voi)
@@ -60,7 +60,7 @@ def test_analysis_compressed_type2(short_epochs):
 
 
 def test_analysis_compressed_type2_norm_mag(short_epochs):
-    from magphase_tpu.vocoder.variants import analysis_compressed_type2
+    from magphase_jax.vocoder.variants import analysis_compressed_type2
     pm_sec, voi = short_epochs
     mml, _, _, _, _, _, _, v_lgain = analysis_compressed_type2(
         WAV, mag_dim=40, phase_dim=20, b_norm_mag=True,
@@ -71,7 +71,7 @@ def test_analysis_compressed_type2_norm_mag(short_epochs):
 
 
 def test_compute_imag_from_real_matches_reference_recursion():
-    from magphase_tpu.vocoder.variants import compute_imag_from_real
+    from magphase_jax.vocoder.variants import compute_imag_from_real
     rng = np.random.RandomState(7)
     v_real = np.clip(rng.randn(64) * 0.5, -0.99, 0.99)
 
@@ -95,14 +95,14 @@ def test_compute_imag_from_real_matches_reference_recursion():
 
 
 def test_run_multithreaded_broadcast_semantics():
-    from magphase_tpu.utils import run_multithreaded
+    from magphase_jax.utils import run_multithreaded
     out = run_multithreaded(lambda a, b, c: a * b + c,
                             [1, 2, 3], 10, [100, 200, 300])
     assert out == [110, 220, 330]
 
 
 def test_plotting_writes_files(tmp_path):
-    from magphase_tpu.utils.plotting import plotm, plot_pitch_marks
+    from magphase_jax.utils.plotting import plotm, plot_pitch_marks
     m = np.random.RandomState(0).randn(30, 16)
     p1 = plotm(m, out_file=str(tmp_path / "m.png"))
     sig = np.sin(np.arange(4000) * 0.05)

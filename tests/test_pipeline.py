@@ -4,7 +4,7 @@ import time
 
 import pytest
 
-from magphase_tpu.utils.pipeline import run_staged
+from magphase_jax.utils.pipeline import run_staged
 
 
 @pytest.mark.parametrize("depth", [1, 2, 4])

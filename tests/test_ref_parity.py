@@ -1,6 +1,7 @@
 """Golden stream-parity: the framework vs a faithful numpy port of the
-reference's LIVE pipelines (tests/oracle/refport.py), run end-to-end on the
-demo corpus with identical fixed epochs.
+reference's LIVE pipelines (tests/oracle/refport.py), run end-to-end on
+generated speech-like utterances (utils/stimuli.py) with identical fixed
+epochs.
 
 This is the test the self round-trips cannot replace: a consistent
 windowing/gain error cancels in analysis->synthesis round trips, but not
@@ -13,26 +14,31 @@ import os
 import numpy as np
 import pytest
 
-from magphase_tpu.io import wav as wav_io
+from magphase_jax.io import wav as wav_io
+from magphase_jax.utils.stimuli import make_corpus, write_corpus
 
 from oracle import refport
 
-WAV_DIR = "/root/reference/demos/data_48k/wavs_nat"
-PRED_DIR = "/root/reference/demos/data_48k/params_predicted"
-WAVS = ["hvd_577", "hvd_593", "hvd_597"]
-
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(WAV_DIR), reason="demo corpus not available")
+FS = 48000
+CORPUS = make_corpus(3, FS, seed=11, min_s=1.0, max_s=1.5)
+WAVS = [u.token for u in CORPUS]
 
 
 @pytest.fixture(scope="module")
-def utts():
-    """(sig, fs, pm_sec, voi) per demo wav — epochs computed ONCE by the
+def wav_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("wavs"))
+    write_corpus(CORPUS, d, os.path.join(d, "corpus.scp"))
+    return d
+
+
+@pytest.fixture(scope="module")
+def utts(wav_dir):
+    """(sig, fs, pm_sec, voi) per wav — epochs computed ONCE by the
     built-in tracker and shared verbatim by both stacks."""
-    from magphase_tpu import epochs
+    from magphase_jax import epochs
     out = {}
     for tok in WAVS:
-        v_sig, fs = wav_io.read_wav(os.path.join(WAV_DIR, tok + ".wav"))
+        v_sig, fs = wav_io.read_wav(os.path.join(wav_dir, tok + ".wav"))
         pm_sec, voi = epochs.extract_epochs(v_sig, fs)
         out[tok] = (np.asarray(v_sig, np.float64), fs,
                     np.asarray(pm_sec, np.float64),
@@ -41,14 +47,14 @@ def utts():
 
 
 @pytest.fixture(scope="module")
-def lossless_streams(utts):
+def lossless_streams(utts, wav_dir):
     """Oracle + framework lossless analysis on every test wav."""
-    from magphase_tpu.vocoder import lossless
+    from magphase_jax.vocoder import lossless
     res = {}
     for tok, (sig, fs, pm_sec, voi) in utts.items():
         ref = refport.analysis_lossless(sig, fs, pm_sec, voi)
         got = lossless.analysis_lossless(
-            os.path.join(WAV_DIR, tok + ".wav"), pm_sec=pm_sec, voi=voi)
+            os.path.join(wav_dir, tok + ".wav"), pm_sec=pm_sec, voi=voi)
         res[tok] = (ref, got, fs)
     return res
 
@@ -79,7 +85,7 @@ def test_analysis_lossless_streams_match_reference(lossless_streams):
 def test_synthesis_from_lossless_matches_reference(lossless_streams):
     """Deterministic resynthesis (magphase.py:1759-1776): same features in,
     waveforms agree to float32 accuracy."""
-    from magphase_tpu.vocoder import lossless
+    from magphase_jax.vocoder import lossless
     for tok, (ref, _got, fs) in lossless_streams.items():
         r_mag, r_real, r_imag, r_f0, _, _ = ref
         v_ref = refport.synthesis_from_lossless(r_mag, r_real, r_imag,
@@ -94,7 +100,7 @@ def test_synthesis_from_lossless_matches_reference(lossless_streams):
 def test_format_for_modelling_matches_reference(lossless_streams):
     """Compressed feature streams (format_for_modelling magphase.py:2490-2544
     with the SPTK mcep leg restated independently) agree to f32 accuracy."""
-    from magphase_tpu.vocoder import compressed
+    from magphase_jax.vocoder import compressed
     tok = WAVS[1]
     ref, _got, fs = lossless_streams[tok]
     m_mag, m_real, m_imag, v_f0 = ref[0], ref[1], ref[2], ref[3]
@@ -114,7 +120,7 @@ def test_format_for_modelling_matches_reference(lossless_streams):
 
 def test_post_filter_stream_matches_reference(lossless_streams):
     """post_filter (magphase.py:2300-2378) on a REAL compressed stream."""
-    from magphase_tpu.vocoder import compressed, postfilter
+    from magphase_jax.vocoder import compressed, postfilter
     tok = WAVS[0]
     ref, _got, fs = lossless_streams[tok]
     g_mml, _, _, _ = compressed.format_for_modelling(
@@ -148,20 +154,21 @@ def _logmel_dist(x, y, fs, n_mel=60):
     return float(np.mean(np.abs(lx - ly)))
 
 
-def test_synthesis_from_compressed_statistics_match_reference():
-    """Noise-bearing synthesis (magphase.py:825-997) from the checked-in
-    Merlin-predicted parameters: the framework's waveform matches the
-    oracle's within a small log-mel spectral distance.  (Exact equality is
-    impossible: the reference's noise is unseeded np.random; the framework
-    uses keyed counter noise plus an adaptive synthesis FFT.)"""
-    from magphase_tpu.io.featfile import read_binfile
-    from magphase_tpu.vocoder import compressed
-    fs = 48000
-    tok = "hvd_704"
-    m_mag = read_binfile(os.path.join(PRED_DIR, tok + ".mag"), 60)
-    m_real = read_binfile(os.path.join(PRED_DIR, tok + ".real"), 45)
-    m_imag = read_binfile(os.path.join(PRED_DIR, tok + ".imag"), 45)
-    v_lf0 = read_binfile(os.path.join(PRED_DIR, tok + ".lf0"), 1)
+def test_synthesis_from_compressed_statistics_match_reference(
+        lossless_streams):
+    """Noise-bearing synthesis (magphase.py:825-997) from compressed
+    features: the framework's waveform matches the oracle's within a
+    small log-mel spectral distance.  (Exact equality is impossible: the
+    reference's noise is unseeded np.random; the framework uses keyed
+    counter noise plus an adaptive synthesis FFT.)"""
+    from magphase_jax.vocoder import compressed
+    ref, _got, fs = lossless_streams[WAVS[2]]
+    m_mag, m_real, m_imag, v_lf0 = refport.format_for_modelling(
+        ref[0], ref[1], ref[2], ref[3], fs, mag_dim=60, phase_dim=45)
+    # predicted-parameter stand-in: an lf0 offset keeps fs/f0 off the
+    # integers, where the reference's bare shift truncation and the
+    # framework's round-trip-stable one (vocoder/framerate.py) differ
+    v_lf0 = np.where(v_lf0 > 0, v_lf0 + 1e-3, v_lf0)
 
     v_f0 = np.exp(np.asarray(v_lf0, np.float64))
     v_shift = refport.f0_to_shift(v_f0, fs).astype(int)
@@ -180,7 +187,7 @@ def test_synthesis_from_compressed_statistics_match_reference():
 
     assert abs(len(v_got) - len(v_ref)) <= 1
     # noise floor of the metric: the oracle against itself with a different
-    # noise draw (measured ~2.9 dB).  The framework must sit within that
+    # noise draw.  The framework must sit within that
     # intrinsic variation, not at some arbitrary absolute bound.
     d_floor = _logmel_dist(np.asarray(v_ref), np.asarray(oracle_synth(8)),
                            fs)
@@ -203,7 +210,7 @@ def test_mcep_j0_independent_restatement():
     """core/melcep.py derives `mcep ... -j 0` as irfft + freqt-matrix; the
     oracle restates _mcep.c/_freqt.c literally (sequential recursions).
     They must agree for every input type the reference uses."""
-    from magphase_tpu.core import melcep
+    from magphase_jax.core import melcep
     rng = np.random.RandomState(0)
     n_frm, h = 7, 257
     m_abs = np.exp(rng.randn(n_frm, h) * 0.8)      # in_type=3 (|f(w)|)
@@ -221,7 +228,7 @@ def test_mcep_j0_independent_restatement():
 
 def test_freqt_sptk_matches_matrix_freqt():
     """_freqt.c recursion vs the framework's Psi-power matrix."""
-    from magphase_tpu.core import melcep
+    from magphase_jax.core import melcep
     rng = np.random.RandomState(1)
     c = rng.randn(5, 65)
     for alpha in (0.0, 0.42, 0.77, -0.35):

@@ -1,7 +1,7 @@
 """`cli serve`: persistent daemon — two sequential requests through ONE
-process produce byte-identical outputs to the one-shot CLI (VERDICT r4
-item 2; the point of the daemon is amortising the per-process jax init +
-trace + compile-cache load across requests)."""
+process produce byte-identical outputs to the one-shot CLI (the point of
+the daemon is amortising the per-process jax init + trace +
+compile-cache load across requests)."""
 import hashlib
 import os
 import shutil
@@ -11,15 +11,14 @@ import time
 
 import pytest
 
-from magphase_tpu.cli import main as cli_main
-from magphase_tpu.serve import request
+from magphase_jax.cli import main as cli_main
+from magphase_jax.serve import request
 
-DATA = "/root/reference/demos/data_48k"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SRV = ("import sys; sys.path.insert(0, {repo!r}); "
         "import jax; jax.config.update('jax_platforms', 'cpu'); "
-        "from magphase_tpu.cli import main; "
+        "from magphase_jax.cli import main; "
         "sys.exit(main(['serve', '--socket', {sock!r}]))")
 
 
@@ -51,20 +50,41 @@ def server(tmp_path_factory):
     proc.wait(timeout=30)
 
 
-def _gen_args(feats, out):
-    return ["generate", "--scp", str(feats / "pred.scp"),
-            "--feats-dir", os.path.join(DATA, "params_predicted"),
-            "--out-dir", str(out), "--fs", "48000", "--pf-type", "no",
-            "--batch-size", "2"]
+FS = 16000
 
 
-def test_serve_two_requests_byte_identical(server, tmp_path):
+@pytest.fixture(scope="module")
+def feats_dir(tmp_path_factory):
+    """Compressed features of two generated utterances (utils/stimuli.py)."""
+    from magphase_jax.io import write_featfile
+    from magphase_jax.parallel.analysis_batch import \
+        analysis_compressed_batch
+    from magphase_jax.utils.stimuli import make_corpus
+
+    d = str(tmp_path_factory.mktemp("feats"))
+    corpus = make_corpus(2, FS, seed=7, min_s=1.0, max_s=1.5)
+    feats = analysis_compressed_batch([u.sig for u in corpus], FS)
+    for u, (mag, real, imag, lf0, _) in zip(corpus, feats):
+        for a, ext in ((mag, "mag"), (real, "real"), (imag, "imag"),
+                       (lf0, "lf0")):
+            write_featfile(a, d, f"{u.token}.{ext}")
+    return d, [u.token for u in corpus]
+
+
+def _gen_args(scp_dir, out, feats):
+    return ["generate", "--scp", str(scp_dir / "pred.scp"),
+            "--feats-dir", feats, "--out-dir", str(out), "--fs", str(FS),
+            "--pf-type", "no", "--batch-size", "2"]
+
+
+def test_serve_two_requests_byte_identical(server, feats_dir, tmp_path):
+    feats, toks = feats_dir
     scp_dir = tmp_path
-    (scp_dir / "pred.scp").write_text("hvd_704\nhvd_705\n")
+    (scp_dir / "pred.scp").write_text("\n".join(toks) + "\n")
 
     # one-shot CLI reference (this process, CPU backend via conftest)
     ref = tmp_path / "wavs_ref"
-    assert cli_main(_gen_args(scp_dir, ref)) == 0
+    assert cli_main(_gen_args(scp_dir, ref, feats)) == 0
 
     # two sequential requests through the ONE daemon process; the second
     # exercises the warm-cache path end to end
@@ -73,18 +93,17 @@ def test_serve_two_requests_byte_identical(server, tmp_path):
     dt = []
     for out in (t1, t2):
         t0 = time.perf_counter()
-        assert request(server, _gen_args(scp_dir, out), timeout=900) == 0
+        assert request(server, _gen_args(scp_dir, out, feats),
+                       timeout=900) == 0
         dt.append(time.perf_counter() - t0)
 
     h = _tree_hash(ref)
     assert _tree_hash(t1) == h
     assert _tree_hash(t2) == h
     # the warm second request must not be grossly slower than the cold
-    # first (compile/trace amortised).  Wide slack: this box has 2 CPUs
-    # and a loaded suite run measured dt[1] > dt[0] purely from
-    # scheduling noise (the real 6.6x warm-request win is measured on
-    # TPU, docs/ROUND5.md §2); the load-insensitive contract of this
-    # test is the byte-identity above
+    # first (compile/trace amortised).  Wide slack: on a loaded CPU run
+    # dt[1] > dt[0] can come from scheduling noise alone; the
+    # load-insensitive contract of this test is the byte-identity above
     assert dt[1] < max(1.5 * dt[0], 20.0), dt
 
 

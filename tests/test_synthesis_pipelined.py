@@ -5,8 +5,8 @@ import os
 import jax
 import numpy as np
 
-from magphase_tpu.io import read_binfile
-from magphase_tpu.parallel.batch import (synthesis_batches_pipelined,
+from magphase_jax.io import read_binfile
+from magphase_jax.parallel.batch import (synthesis_batches_pipelined,
                                          synthesis_from_compressed_batch)
 
 PRED_DIR = "/root/reference/demos/data_48k/params_predicted"

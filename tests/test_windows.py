@@ -3,7 +3,7 @@ formulas (libaudio.py:70-103, magphase.py:25-31, 67-68)."""
 import numpy as np
 import jax.numpy as jnp
 
-from magphase_tpu.core import windows as W
+from magphase_jax.core import windows as W
 
 
 def _np_centr_win(winlen_l, winlen_r, totlen, win_func, fill_bound):

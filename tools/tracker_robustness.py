@@ -4,7 +4,7 @@
 Sweeps MAGPHASE_TRACKER_WHITEN modes over the ground-truth stimulus set
 (tests/test_tracker_groundtruth.py) x degradation conditions and prints
 the worst-case metrics per (mode, condition) — the measurement behind
-the VERDICT r4 item-5 fix (reverb GPE 8.5% -> target <= 4%).
+the two-phase epoch snap (reverb GPE 8.5% -> target <= 4%).
 
 Usage: python tools/tracker_robustness.py [mode ...]
 """
@@ -22,8 +22,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from magphase_tpu.epochs import extract_epochs  # noqa: E402
-from magphase_tpu.utils.tracker_eval import (degrade_stimulus,  # noqa: E402
+from magphase_jax.epochs import extract_epochs  # noqa: E402
+from magphase_jax.utils.tracker_eval import (degrade_stimulus,  # noqa: E402
                                              make_stimulus, tracker_metrics)
 
 FS = 48000
